@@ -7,7 +7,7 @@ and the decoder gives you back time series from the windowed-harmonic coefficien
 (`p_c`) that the reference can only produce, not consume.
 
 Run: python examples/end_to_end.py [workdir]
-(CPU or TPU; ~20 s on CPU. The test suite runs this file, so it stays green.)
+(CPU or GPU; ~20 s on CPU. The test suite runs this file, so it stays green.)
 """
 
 import os

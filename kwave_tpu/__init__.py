@@ -1,9 +1,10 @@
-"""kwave_tpu — TPU-native k-Wave fluid framework.
+"""kwave_tpu — a JAX k-Wave fluid framework.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of kspaceFirstOrder-CUDA v1.3
+Brand-new JAX/XLA implementation of the capabilities of kspaceFirstOrder-CUDA v1.3
 (reference: klepo/k-Wave-Fluid-CUDA): the k-space pseudospectral acoustic solver, the
 sample-and-compress output-stream path, and the on-the-fly lossless-roundtrip compression codec
-(windowed complex-exponential harmonic coefficients, 40-bit packing), designed TPU-first.
+(windowed complex-exponential harmonic coefficients, 40-bit packing). It runs on a GPU (cuFFT
+plus XLA-fused elementwise code) and, for tests, on the CPU.
 
 See DESIGN.md for the architecture and SURVEY.md for the reference layer map.
 """

@@ -1,6 +1,6 @@
 """Compression basis tables and period detection.
 
-Reimplements (fresh, TPU-first) the basis generation of the reference codec
+Reimplements (fresh) the basis generation of the reference codec
 (`Compression/CompressHelper.cpp:48-65` init, `:672-778` generateFunctions/triangular/
 generateE/generateBE) and the period auto-detection (`CompressHelper.cpp:146-216` findPeriod,
 `:549-572` findPeaks, `:580-658` diff/median).

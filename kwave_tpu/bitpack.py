@@ -9,7 +9,7 @@ Semantics are op-for-op those of the reference codec (`Compression/CompressHelpe
 bit-identical to `kwave_tpu.oracle.encode40/decode40` (which the tests enforce): shared 4-bit
 exponent, 17-bit mantissas with a flag bit encoding a per-part exponent decrement,
 truncate-then-increment rounding with overflow guard, uint8 shift-count wraparound, saturation
-on exponent overflow. Pure integer arithmetic: results are identical on CPU and TPU backends.
+on exponent overflow. Pure integer arithmetic: results are identical on every backend.
 """
 
 from __future__ import annotations

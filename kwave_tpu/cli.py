@@ -1,4 +1,4 @@
-"""kspaceFirstOrder-TPU command-line entry (main.cpp:840-937 equivalent).
+"""kspaceFirstOrder-JAX command-line entry (main.cpp:840-937 equivalent).
 
 `python -m kwave_tpu.cli -i input.h5 -o output.h5 --p_c ...`
 """
@@ -9,10 +9,11 @@ import sys
 import time
 
 from kwave_tpu.driver import run_simulation
+from kwave_tpu.utils import compile_cache
 from kwave_tpu.io.input_file import read_input_file
 from kwave_tpu.params import args_to_run_config, build_parser
 
-VERSION = ("kspaceFirstOrder-TPU v0.1 (kwave_tpu; capability target: "
+VERSION = ("kspaceFirstOrder-JAX v0.1 (kwave_tpu; capability target: "
            "kspaceFirstOrder-CUDA v1.3)")
 
 
@@ -27,32 +28,36 @@ def main(argv=None) -> int:
 
     Logger.level = args.verbose  # Basic/Advanced/Full (Logger.h:57-63)
 
-    # Multi-host bring-up (POD_RUNBOOK.md): one process per host. With explicit
-    # coordinator/rank flags use them; with --distributed alone let JAX
-    # auto-detect from the TPU pod metadata (Cloud TPU env). Must run before any
-    # backend touch so the global device view spans the slice.
-    if args.num_processes is not None or args.distributed:
+    compile_cache.enable()
+
+    # Multi-host bring-up (POD_RUNBOOK.md): one process per host, each driving all of
+    # its host's devices. Must run before any backend touch so the global device view
+    # spans every host.
+    if args.num_processes is not None:
         from kwave_tpu.parallel.distributed import initialize
 
-        if args.num_processes is not None:
-            if args.num_processes > 1 and (
-                args.coordinator is None or args.process_id is None
-            ):
-                parser.error(
-                    "--num_processes requires --coordinator HOST:PORT and "
-                    "--process_id R (or use bare --distributed on a Cloud TPU "
-                    "pod for metadata auto-detection)"
-                )
-            initialize(coordinator=args.coordinator,
-                       num_processes=args.num_processes,
-                       process_id=args.process_id)
-        else:
-            import jax
+        if args.num_processes > 1 and (
+            args.coordinator is None or args.process_id is None
+        ):
+            parser.error(
+                "--num_processes requires --coordinator HOST:PORT and "
+                "--process_id R"
+            )
+        initialize(coordinator=args.coordinator,
+                   num_processes=args.num_processes,
+                   process_id=args.process_id)
+    elif args.coordinator is not None or args.process_id is not None:
+        parser.error("--coordinator/--process_id need --num_processes N")
+    return simulate(args, args.input_file, args.output_file)
 
-            jax.distributed.initialize()
 
+def simulate(args, input_file, output_file) -> int:
+    """Everything after argument parsing and start-up: read the input, run (or
+    post-process), write the output. ``input_file``/``output_file`` are the -i/-o paths,
+    or `io.memory.MemoryFile` stores in their place where h5py is not installed
+    (chip_smoke.py drives the CLI that way)."""
     t0 = time.time()
-    data = read_input_file(args.input_file)
+    data = read_input_file(input_file)
 
     if args.post:
         # --post: post-processing only on an existing output file (main.cpp --post;
@@ -66,11 +71,11 @@ def main(argv=None) -> int:
 
             mask = _corners_to_indices(data.sensor_mask_corners, data.grid)
         if args.I_avg or args.Q_term:
-            post_process_output_file(args.output_file, data.grid, mask,
+            post_process_output_file(output_file, data.grid, mask,
                                      want_i_avg=args.I_avg, want_q_term=args.Q_term,
                                      from_coeffs=False, block_size=args.block_size)
         if args.I_avg_c or args.Q_term_c:
-            post_process_output_file(args.output_file, data.grid, mask,
+            post_process_output_file(output_file, data.grid, mask,
                                      want_i_avg=args.I_avg_c, want_q_term=args.Q_term_c,
                                      from_coeffs=True, block_size=args.block_size)
         print(f"[kwave_tpu] post-processing done in {time.time() - t0:.2f}s")
@@ -105,7 +110,7 @@ def main(argv=None) -> int:
         from kwave_tpu.parallel import make_mesh
 
         if args.devices is not None and args.devices != len(jax.devices()):
-            parser.error(
+            build_parser().error(
                 f"--devices {args.devices} under a multi-process launch must "
                 f"equal the global device count ({len(jax.devices())}); each "
                 "process owns its local chips — narrow the slice itself instead"
@@ -118,7 +123,7 @@ def main(argv=None) -> int:
 
     t1 = time.time()
     summary = run_simulation(
-        data, run, args.output_file,
+        data, run, output_file,
         resume_from=args.checkpoint_file
         if args.checkpoint_file and _checkpoint_exists(args.checkpoint_file) else None,
         mesh=mesh,
@@ -128,13 +133,12 @@ def main(argv=None) -> int:
     if args.copy_sensor_mask and jax.process_index() == 0:
         # --copy_sensor_mask: carry the mask into the output file (1-based on disk, as
         # in the input format); writer-gated — only process 0 holds the file
-        import h5py
         import numpy as np
 
         from kwave_tpu.io import names as dn
-        from kwave_tpu.io.hdf5 import tag_dataset
+        from kwave_tpu.io.hdf5 import open_file, tag_dataset
 
-        with h5py.File(args.output_file, "r+") as f:
+        with open_file(output_file, "r+") as f:
             if data.sensor_mask_index is not None:
                 ds = f.create_dataset(
                     dn.SENSOR_MASK_INDEX,
@@ -158,12 +162,12 @@ def main(argv=None) -> int:
 def _checkpoint_exists(path: str) -> bool:
     import os
 
-    import h5py
+    from kwave_tpu.io.hdf5 import open_file
 
     if not os.path.exists(path):
         return False
     try:
-        with h5py.File(path, "r") as f:
+        with open_file(path, "r") as f:
             return "t_index" in f
     except OSError:
         return False

@@ -1,12 +1,12 @@
 """Decoder: coefficient unpacking, basis-synthesis reconstruction, coefficient-space intensity.
 
-TPU-native consumers of the compressed coefficient streams:
+Consumers of the compressed coefficient streams:
 
 - `decode_frames_40b`: packed SoA planes -> fp32 complex planes (pure integer unpack,
   backend-exact; semantics of `CompressHelper::convert40bToFloatC`,
   Compression/CompressHelper.cpp:224-284).
 - `reconstruct`: inverse of the windowed projection — overlap-add synthesis with the
-  triangular window, formulated as one MXU einsum over all frames at once. The C++ reference
+  triangular window, formulated as one einsum over all frames at once. The C++ reference
   never reconstructs the time series (it consumes coefficients directly); this is the
   analytical inverse used by the round-trip acceptance gate.
 - `avg_intensity_frames` / `avg_intensity_update`: time-averaged acoustic intensity straight
@@ -62,8 +62,7 @@ def decode_40bit_rows(rows, harmonics: int, max_exp: int):
     return np.asarray(re), np.asarray(im)
 
 
-@functools.partial(jax.jit, static_argnames=("o_size", "n_steps", "normalized",
-                                             "compute"))
+@functools.partial(jax.jit, static_argnames=("o_size", "n_steps", "normalized"))
 def reconstruct(
     f_re: jax.Array,
     f_im: jax.Array,
@@ -72,7 +71,6 @@ def reconstruct(
     o_size: int,
     n_steps: int,
     normalized: bool = True,
-    compute: str = "flat",
 ):
     """Overlap-add synthesis of the time series from coefficient frames.
 
@@ -84,7 +82,7 @@ def reconstruct(
                                    + C_re[k+1,h]*bE_re[r,h] + C_im[k+1,h]*bE_im[r,h] )
 
     (``Re(C * conj(e^{-iwu})) = C_re*cos + C_im*(-sin)`` — the tables already hold
-    ``e^{-iw u}``). Both terms are one batched matmul ``[K,H,N] x [o,H] -> [K,o,N]`` on the MXU.
+    ``e^{-iw u}``). Both terms are one batched matmul ``[K,H,N] x [o,H] -> [K,o,N]``.
     ``scale = o/2`` undoes the production-mode 2/oSize normalization
     (Parameters/Parameters.cpp:549-551).
 
@@ -100,14 +98,6 @@ def reconstruct(
     n_c = f_re.shape[0]
     o = o_size
     k_max = (n_steps + o - 1) // o
-    from kwave_tpu.encoder import _use_pallas
-
-    if _use_pallas():
-        # packed-kernel path: the concat is the price of the split (re, im) API —
-        # packed-frame callers use reconstruct_frames and skip it
-        frames = jnp.concatenate([f_re, f_im], axis=1)  # [Nc, 2H, N]
-        return reconstruct_frames(frames, be_re, be_im, o, n_steps, normalized,
-                                  compute)
     # x[k*o + r] = late[k, r] + early[k+1, r]. The coefficient frames are ~oSize x smaller
     # than the synthesized series, so pair frame k with frame k+1 on the (cheap) coefficient
     # side first, then run ONE contraction that writes the big output exactly once:
@@ -120,8 +110,8 @@ def reconstruct(
         axis=1,
     )  # [k_max, 4H, N]
     tab = jnp.concatenate([be_re[o:], be_im[o:], be_re[:o], be_im[:o]], axis=1)  # [o, 4H]
-    # HIGHEST precision with fp32 accumulation: the MXU's default fp32 matmul is bf16
-    # passes (~1e-3 rel error) — enough to fail the round-trip acceptance gate
+    # HIGHEST precision with fp32 accumulation: a GPU's default fp32 matmul is TF32
+    # (~1e-3 rel error) — enough to fail the round-trip acceptance gate
     x = jnp.einsum("khn,rh->krn", g, tab, precision=lax.Precision.HIGHEST,
                    preferred_element_type=jnp.float32)
     x = x.reshape(k_max * o, -1)[:n_steps]
@@ -129,8 +119,7 @@ def reconstruct(
     return x * scale
 
 
-@functools.partial(jax.jit, static_argnames=("o_size", "n_steps", "normalized",
-                                             "compute"))
+@functools.partial(jax.jit, static_argnames=("o_size", "n_steps", "normalized"))
 def reconstruct_frames(
     frames: jax.Array,  # [Nc, 2H, N] rows [:H]=re, [H:]=im
     be_re: jax.Array,
@@ -138,27 +127,12 @@ def reconstruct_frames(
     o_size: int,
     n_steps: int,
     normalized: bool = True,
-    compute: str = "flat",
 ):
-    """Overlap-add synthesis from PACKED coefficient frames (``[Nc, 2H, N]``, the
-    Pallas kernels' native layout — `encoder.encode_series_frames`). Production
-    decode path: no re/im concat touches the frame planes (an extra HBM pass the
-    split-API `reconstruct` cannot avoid). Semantics identical to `reconstruct`."""
-    o = o_size
-    from kwave_tpu.encoder import _use_pallas
-
-    if _use_pallas():
-        from kwave_tpu.ops import fastpath
-
-        tab4 = jnp.concatenate([be_re[o:], be_im[o:], be_re[:o], be_im[:o]], axis=1)
-        if compute == "flat":
-            return fastpath.reconstruct_series_flat(frames, tab4, o, n_steps,
-                                                    normalized)
-        return fastpath.reconstruct_series(frames, tab4, o, n_steps, normalized,
-                                           compute=compute)
+    """Overlap-add synthesis from PACKED coefficient frames (``[Nc, 2H, N]``, the layout
+    of `encoder.encode_series_frames`). Semantics identical to `reconstruct`."""
     h = frames.shape[1] // 2
-    return reconstruct(frames[:, :h], frames[:, h:], be_re, be_im, o, n_steps,
-                       normalized, compute)
+    return reconstruct(frames[:, :h], frames[:, h:], be_re, be_im, o_size, n_steps,
+                       normalized)
 
 
 def reconstruct_series(frames_re, frames_im, basis: CompressionBasis, shifted: bool,

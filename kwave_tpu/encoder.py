@@ -1,4 +1,4 @@
-"""Streaming frame encoder for compressed output streams — the TPU-native codec core.
+"""Streaming frame encoder for compressed output streams — the codec core.
 
 Two formulations of the reference's sample-and-compress path
 (`IndexOutputStream::flushRaw`, OutputStreams/IndexOutputStream.cpp:348-471):
@@ -8,7 +8,7 @@ fp32 complex MAC order (and, in 40-bit mode, the per-step decode->add->encode re
 bit-for-bit. A `lax.scan` over oSize-step chunks; each chunk emits exactly one frame. This is
 the compliance mode for the bit-exactness acceptance gate.
 
-**Fast path** (`encode_series_fast`): the TPU-native reformulation. The dual staggered
+**Fast path** (`encode_series_fast`): a matmul reformulation. The dual staggered
 accumulators are algebraically a *strided windowed projection*: frame ``c`` equals
 ``sum_{u=0}^{2o-1} bE[u] * x((c-1)*o + u)`` for every c >= 1 (the rotation identity
 ``bE_1[s] == bE[(s+o) mod 2o]`` makes the even/odd buffer dance collapse), and the mirrored
@@ -19,7 +19,7 @@ one read of the input. Reduction order differs from the reference's sequential l
 path is fp32-accurate but not bit-identical; in 40-bit mode it quantizes once per completed
 frame instead of every step (higher quality than the reference, different bits).
 
-Device data layout: accumulators and frames are ``[H, N]`` (sensors on the 128-lane axis);
+Device data layout: accumulators and frames are ``[H, N]`` (sensors on the minor axis);
 sample chunks are ``[o, N]``; basis tables are time-major ``[2o, H]``. The host/file edge
 transposes to the reference's sensor-major interleaved layout (kwave_tpu.streams).
 """
@@ -205,61 +205,14 @@ def _emit(state, cfg: EncoderConfig):
     return out, frame
 
 
-# None = auto (Pallas fused window kernels on TPU, lax.fori_loop elsewhere);
-# True/False force one path (tests / on-chip validation).
-USE_PALLAS: Optional[bool] = None
-
-
-def _use_pallas() -> bool:
-    if USE_PALLAS is not None:
-        return USE_PALLAS
-    return jax.default_backend() == "tpu"
-
-
-def _stacked_tables(tables) -> jax.Array:
-    """[2o, 4H] = [bE_re | bE_im | bE1_re | bE1_im] columns (the Pallas kernels' layout)."""
-    return jnp.concatenate(
-        [tables["be_re"], tables["be_im"], tables["be1_re"], tables["be1_im"]], axis=1
-    )
-
-
-def _encode_chunk_pallas(state, x_chunk, cfg: EncoderConfig, tables):
-    """Window accumulate through the fused VMEM kernels (kwave_tpu.ops.encode_pallas):
-    the whole oSize-step loop runs on-chip with the accumulator planes resident in VMEM —
-    o x fewer HBM round trips than the fori_loop formulation, same per-step arithmetic."""
-    from kwave_tpu.ops import encode_pallas as ep
-
-    o = cfg.o_size
-    parity = (state["sampled_step"] // o) % 2
-    mirror = (state["compressed_step"] == 0) & cfg.overlap
-    tabs = _stacked_tables(tables)
-    if cfg.mode40:
-        keys = ("hdr1", "mr1", "mi1") + (("hdr2", "mr2", "mi2") if cfg.overlap else ())
-        planes = tuple(state[k] for k in keys)
-        new = ep.encode_window_40b_exact(
-            x_chunk, tabs, planes, cfg.e_const, parity, mirror, overlap=cfg.overlap
-        )
-    else:
-        keys = ("acc1_re", "acc1_im") + (("acc2_re", "acc2_im") if cfg.overlap else ())
-        planes = tuple(state[k] for k in keys)
-        new = ep.encode_window_float_exact(
-            x_chunk, tabs, planes, parity, mirror, overlap=cfg.overlap
-        )
-    out = dict(state, **dict(zip(keys, new)))
-    out["sampled_step"] = state["sampled_step"] + o
-    return out
-
-
 def encode_chunk(state, x_chunk, cfg: EncoderConfig, tables):
     """Process one aligned oSize-step chunk; emits exactly one frame.
 
-    Requires state.sampled_step to be a multiple of oSize. On TPU the window accumulate
-    runs through the fused Pallas kernels (see `_encode_chunk_pallas`); elsewhere (and
-    under `USE_PALLAS = False`) it is a lax.fori_loop of per-step MACs.
+    Requires state.sampled_step to be a multiple of oSize. The window accumulate is a
+    lax.fori_loop of per-step MACs; its accumulator planes are [H, N] (0.4 MB at
+    16,384 sensors, H=2, overlap), so the loop's traffic is a small share of a window.
     """
     o = cfg.o_size
-    if _use_pallas():
-        return _emit(_encode_chunk_pallas(state, x_chunk, cfg, tables), cfg)
     parity = (state["sampled_step"] // o) % 2
 
     def body(i, st):
@@ -353,7 +306,8 @@ def encode_series_exact(series, basis: CompressionBasis, shifted=False, mode40=F
         # Tiny record: accumulate everything, then the lastStep flush emits one partial
         # frame (IndexOutputStream.cpp:455-456). Built from the same fori_loop blocks as
         # the production driver so the two agree bit-for-bit on every backend (XLA:CPU
-        # FMA-contracts loop bodies; XLA:TPU contracts nothing — see tools/validate_tpu).
+        # differs from the oracle in the last bits; XLA:GPU emits separately rounded
+        # mul.rn/add.rn and matches it bit for bit — chip_smoke.py checks).
         if t_total >= o:  # record is exactly one window: the saving boundary emits
             state, frame = encode_chunk(state, series[:o], cfg, tables)
             return tuple(f[None] for f in frame), state
@@ -362,31 +316,8 @@ def encode_series_exact(series, basis: CompressionBasis, shifted=False, mode40=F
         return tuple(f[None] for f in frame), state
 
     n_chunks = t_total // o
-    if _use_pallas() and n_chunks >= 1:
-        # whole-series fused kernel: the K-window sweep in ONE pallas_call (per-window
-        # dispatch would dominate standalone encodes; see ops.encode_pallas)
-        from kwave_tpu.ops import encode_pallas as ep
-
-        tabs = _stacked_tables(tables)
-        if mode40:
-            frames, planes = ep.encode_series_40b(
-                series, tabs, cfg.e_const, o, overlap=cfg.overlap
-            )
-            keys = ("hdr1", "mr1", "mi1", "hdr2", "mr2", "mi2")
-            state.update({k: v for k, v in zip(keys, planes) if cfg.overlap or
-                          k in ("hdr1", "mr1", "mi1")})
-        else:
-            frames, planes = ep.encode_series_float_exact(
-                series, tabs, o, overlap=cfg.overlap
-            )
-            keys = ("acc1_re", "acc1_im", "acc2_re", "acc2_im")
-            state.update({k: v for k, v in zip(keys, planes) if cfg.overlap or
-                          k in ("acc1_re", "acc1_im")})
-        state["sampled_step"] = jnp.int32(n_chunks * o)
-        state["compressed_step"] = jnp.int32(n_chunks)
-    else:
-        chunks = series[: n_chunks * o].reshape(n_chunks, o, n)
-        state, frames = encode_chunks(state, chunks, cfg, tables)
+    chunks = series[: n_chunks * o].reshape(n_chunks, o, n)
+    state, frames = encode_chunks(state, chunks, cfg, tables)
     # Trailing partial window: accumulate into state (no emission; reference emits the next
     # frame only at the next saving boundary).
     rem = t_total - n_chunks * o
@@ -396,7 +327,7 @@ def encode_series_exact(series, basis: CompressionBasis, shifted=False, mode40=F
 
 
 # ---------------------------------------------------------------------------
-# Fast path — strided windowed projection (two batched matmuls, MXU-friendly)
+# Fast path — strided windowed projection (two batched matmuls)
 # ---------------------------------------------------------------------------
 
 
@@ -422,35 +353,25 @@ def _fast_project(series, be_re, be_im, o_size: int, precision):
 
 
 def encode_series_frames(series, basis: CompressionBasis, shifted=False,
-                         precision=lax.Precision.HIGHEST, compute: str = "flat"):
+                         precision=lax.Precision.HIGHEST):
     """Packed-frame fast encode: frames ``[Nc, 2H, N]`` with rows ``[:H]`` = re,
-    ``[H:]`` = im — the Pallas kernels' native layout.
+    ``[H:]`` = im.
 
-    This is the production overlap-mode float path: carrying the packed layout
-    end-to-end (encode -> consumer -> `decoder.reconstruct_frames`) keeps the big
-    frame planes untouched between the kernels; the re/im split
-    (`encode_series_fast`) and re-concat (`decoder.reconstruct`) would otherwise
-    cost two avoidable HBM passes over F per round trip."""
+    Overlap-mode float path for standalone encodes: `decoder.reconstruct_frames` takes
+    this layout directly. ``precision`` defaults to HIGHEST, which keeps the einsum in
+    full fp32 (a GPU's default fp32 matmul is TF32, ~1e-3 relative)."""
     series = jnp.asarray(series, jnp.float32)
     o = basis.o_size
     be_re, be_im, _, _ = basis.tables(shifted)
     tab_re = jnp.asarray(be_re[:, : 2 * o].T)
     tab_im = jnp.asarray(be_im[:, : 2 * o].T)
-    if _use_pallas() and series.shape[0] >= o:
-        # whole-series fused kernel: one HBM read of the series, frames written once
-        from kwave_tpu.ops import fastpath
-
-        tab = jnp.concatenate([tab_re, tab_im], axis=1)  # [2o, 2H]
-        if compute == "flat":
-            return fastpath.encode_frames_flat(series, tab[:o], tab[o:], o)
-        return fastpath.encode_frames(series, tab[:o], tab[o:], o, compute=compute)
     f_re, f_im = _fast_project(series, tab_re, tab_im, o, precision)
     return jnp.concatenate([f_re, f_im], axis=1)
 
 
 def encode_series_fast(series, basis: CompressionBasis, shifted=False, mode40=False,
                        overlap=True, precision=lax.Precision.HIGHEST,
-                       bits: Optional[int] = None, compute: str = "flat"):
+                       bits: Optional[int] = None):
     """Fast windowed-projection encoder (not bit-identical; fp32-accurate).
 
     Float mode returns (re, im) [Nc, H, N]; packed modes quantize each completed frame
@@ -468,7 +389,7 @@ def encode_series_fast(series, basis: CompressionBasis, shifted=False, mode40=Fa
     series = jnp.asarray(series, jnp.float32)
     o = basis.o_size
     if overlap:
-        frames = encode_series_frames(series, basis, shifted, precision, compute)
+        frames = encode_series_frames(series, basis, shifted, precision)
         h = basis.harmonics
         f_re, f_im = frames[:, :h], frames[:, h:]
     else:

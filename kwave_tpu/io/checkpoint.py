@@ -14,11 +14,16 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import h5py
 import numpy as np
 
 from kwave_tpu.io import names
-from kwave_tpu.io.hdf5 import create_dataset, read_scalar, write_file_header, write_scalar
+from kwave_tpu.io.hdf5 import (
+    create_dataset,
+    open_file,
+    read_scalar,
+    write_file_header,
+    write_scalar,
+)
 from kwave_tpu.solver.step import SimState
 
 
@@ -43,7 +48,7 @@ def write_checkpoint(
     """stream_coeffs: dataset name -> (buffer1, buffer2|None), flat float arrays in the
     reference interleaved layout (encoder.frames_to_flat_*)."""
     nx, ny, nz = grid_shape
-    with h5py.File(path, "w") as f:
+    with open_file(path, "w") as f:
         write_file_header(f, names.FILE_TYPE_CHECKPOINT)
         write_scalar(f, names.T_INDEX, int(t_index))
         write_scalar(f, names.NX, nx)
@@ -70,7 +75,7 @@ def write_checkpoint(
 def read_checkpoint(path: str) -> dict[str, Any]:
     """Returns {'t_index', 'grid_shape', 'fields': {name: array}, 'stream_coeffs':
     {stream: (buf1, buf2|None)}} (recovery path, KSpaceFirstOrderSolver.cpp:186-228)."""
-    with h5py.File(path, "r") as f:
+    with open_file(path, "r") as f:
         out: dict[str, Any] = {
             "t_index": read_scalar(f, names.T_INDEX),
             "grid_shape": (

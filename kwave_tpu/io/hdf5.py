@@ -12,12 +12,33 @@ from __future__ import annotations
 
 import datetime
 import socket
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-import h5py
 import numpy as np
 
+if TYPE_CHECKING:
+    import h5py
+
 from kwave_tpu.io import names
+from kwave_tpu.io.memory import MemoryFile
+
+
+def open_file(target, mode: str = "r", **kwargs):
+    """Open an HDF5 file: an h5py.File for a path, or the given `io.memory.MemoryFile`
+    itself (emptied first when ``mode`` is ``"w"``). The one place that imports h5py, so
+    a machine without it can still run everything that is handed a MemoryFile."""
+    if isinstance(target, MemoryFile):
+        if mode == "w":
+            target.clear()
+        return target
+    import h5py
+
+    return h5py.File(target, mode, **kwargs)
+
+
+def is_group(obj) -> bool:
+    """True for an HDF5 group (h5py or in-memory), false for a dataset."""
+    return hasattr(obj, "keys")
 
 
 def _fixed_str(value: str) -> np.bytes_:

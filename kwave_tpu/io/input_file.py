@@ -19,12 +19,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import h5py
 import numpy as np
 
 from kwave_tpu.io import names
 from kwave_tpu.io.hdf5 import (
     create_dataset,
+    open_file,
     read_scalar,
     tag_dataset,
     validate_file_header,
@@ -105,7 +105,7 @@ def _signal_to_file(sig: np.ndarray, many: bool) -> np.ndarray:
 
 def write_input_file(path: str, data: InputData) -> None:
     grid, medium = data.grid, data.medium
-    with h5py.File(path, "w") as f:
+    with open_file(path, "w") as f:
         write_file_header(f, names.FILE_TYPE_INPUT)
         # grid scalars
         write_scalar(f, names.NX, grid.nx)
@@ -237,9 +237,9 @@ def _signal_from_file(arr: np.ndarray, many: bool) -> np.ndarray:
 
 
 def read_input_file(path: str) -> InputData:
-    """Load an input file into solver-native conventions (the TPU-side
+    """Load an input file into solver-native conventions (the device-side
     `loadInputData`, KSpaceFirstOrderSolver.cpp:159-257)."""
-    with h5py.File(path, "r") as f:
+    with open_file(path, "r") as f:
         validate_file_header(f, names.FILE_TYPE_INPUT, path)
         nx, ny, nz = (read_scalar(f, n) for n in (names.NX, names.NY, names.NZ))
         is3d = nz > 1

@@ -19,13 +19,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-import h5py
 import numpy as np
 
+if TYPE_CHECKING:
+    import h5py
+
 from kwave_tpu.io import names
-from kwave_tpu.io.hdf5 import create_dataset, write_attr, write_file_header
+from kwave_tpu.io.hdf5 import create_dataset, open_file, write_attr, write_file_header
 
 CHUNK_4MB = 1048576  # floats (kChunkSize4MB, BaseOutputStream.h:289)
 
@@ -63,8 +65,9 @@ class CompressionAttrs:
         return max(sampled_steps // self.o_size, 1)
 
 
-def create_output_file(path: str) -> h5py.File:
-    f = h5py.File(path, "w")
+def create_output_file(path) -> h5py.File:
+    """A fresh output file with its header; ``path`` may be an `io.memory.MemoryFile`."""
+    f = open_file(path, "w")
     write_file_header(f, names.FILE_TYPE_OUTPUT)
     return f
 
@@ -168,7 +171,7 @@ def write_frame(ds: h5py.Dataset, row: int, data: np.ndarray) -> None:
 
 
 def write_frames(ds: h5py.Dataset, start_row: int, data: np.ndarray) -> None:
-    """Contiguous block of rows (the batched TPU path flushes whole frame batches)."""
+    """Contiguous block of rows (batched writers flush whole frame batches)."""
     n = data.shape[0]
     if ds.ndim == 3:
         ds[0, start_row : start_row + n, :] = data.reshape(n, -1)

@@ -20,7 +20,7 @@ def build(force: bool = False) -> str:
     ):
         return LIB
     # -ffp-contract=off: the accumulate loops must round mul and add separately
-    # (IEEE fp32, matching the NumPy oracle and the TPU VPU) — gcc would otherwise fuse
+    # (IEEE fp32, matching the NumPy oracle and the GPU's mul.rn/add.rn) — gcc would otherwise fuse
     # a*x+b into FMA and drift under cancellation.
     cmd = [
         "g++", "-O3", "-march=native", "-ffp-contract=off", "-fopenmp",

@@ -1,6 +1,6 @@
 """NumPy golden reference ("oracle") for the compression codec and streaming encoder.
 
-This module is the executable specification the TPU kernels are tested against. It reproduces,
+This module is the executable specification the device codec is tested against. It reproduces,
 op-for-op in fp32/uint32, the reference CPU path:
 
 - 40-bit complex pack/unpack: `CompressHelper::convertFloatCTo40b` / `convert40bToFloatC`

@@ -1,7 +1,7 @@
-"""Multi-chip parallelism: mesh setup, field/codec shardings, distributed simulate.
+"""Multi-device parallelism: mesh setup, field/codec shardings, distributed simulate.
 
 The reference is strictly single-GPU (SURVEY.md §2.9; Readme.md:12 "single NVIDIA GPU") —
-this layer is new, TPU-first design: spatial domain decomposition of the solver fields over
+this layer is new: spatial domain decomposition of the solver fields over
 the mesh 'space' axis and sensor-block data parallelism for the codec, with basis tables
 replicated. XLA GSPMD inserts the collectives (all-gathers around the sharded-axis FFTs;
 reduce-scatters where profitable).

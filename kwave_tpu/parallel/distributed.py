@@ -84,12 +84,28 @@ def fetch_global(tree):
     return jax.tree_util.tree_map(one, tree, is_leaf=lambda v: v is None)
 
 
+def _distributed_state():
+    """JAX's distributed-runtime state: its coordinator client (whose key-value store
+    publishes the writer's address) and the coordinator address. JAX exposes no public
+    key-value store, so this reads ``jax._src.distributed``; a JAX without it fails
+    here with a message instead of deep inside a gather."""
+    try:
+        from jax._src import distributed as jdist
+
+        return jdist.global_state
+    except (ImportError, AttributeError) as exc:
+        raise RuntimeError(
+            f"jax {jax.__version__} has no jax._src.distributed.global_state; the "
+            "multi-process writer gather needs its coordinator key-value store"
+        ) from exc
+
+
 class WriterGather:
     """Point-to-point gather of sharded host values to the WRITER process only.
 
     The reference funnels all sampled device data to exactly one consumer (the
     zero-copy host buffers read by its single process,
-    OutputStreams/BaseOutputStream.cpp:369-388). The multi-host TPU equivalent
+    OutputStreams/BaseOutputStream.cpp:369-388). The multi-host equivalent
     (SURVEY.md §2.9/§7: "index-ordered gather to the writer host over DCN") must
     NOT replicate every emission to every rank the way `process_allgather` does —
     that costs P x the necessary DCN bytes and gives every rank a global-size
@@ -147,9 +163,7 @@ class WriterGather:
         self._sock = None
         if self._nproc <= 1:
             return
-        from jax._src import distributed as _jdist
-
-        client = _jdist.global_state.client
+        client = _distributed_state().client
         if client is None:  # pragma: no cover - initialize() always sets it
             raise RuntimeError("jax.distributed is not initialized")
         if self._rank == 0:
@@ -201,12 +215,13 @@ class WriterGather:
         import os
         import socket
 
-        from jax._src import distributed as _jdist
-
         override = os.environ.get("KWAVE_WRITER_HOST")
         if override:
             return override
-        coord = getattr(_jdist.global_state, "coordinator_address", None)
+        try:
+            coord = getattr(_distributed_state(), "coordinator_address", None)
+        except RuntimeError:
+            coord = None
         if coord:
             chost, _, cport = coord.rpartition(":")
             try:

@@ -1,9 +1,9 @@
 """Distributed 3D FFT: pencil decomposition over the mesh 'space' axis via shard_map.
 
 The reference has no distributed FFT (single GPU, cuFFT plans — MatrixClasses/
-CufftComplexMatrix.cpp). For multi-chip TPU the naive approach (GSPMD all-gathering the
-z-sharded field around jnp.fft.rfftn) moves the whole field through ICI every FFT; the
-pencil scheme moves it once per transpose and keeps every 1D FFT local:
+CufftComplexMatrix.cpp). Across devices the naive approach (GSPMD all-gathering the
+z-sharded field around jnp.fft.rfftn) moves the whole field between devices every FFT;
+the pencil scheme moves it once per transpose and keeps every 1D FFT local:
 
   forward:  [nz/S, ny, nx] --rfft(x), fft(y) local--> [nz/S, ny, nxR]
             --all_to_all(z<->y)--> [nz, ny/S, nxR] --fft(z) local--> spectral, y-sharded
@@ -11,18 +11,18 @@ pencil scheme moves it once per transpose and keeps every 1D FFT local:
 
 Spectral fields and spectral operators therefore live **y-sharded** (P(None,'space',None))
 while time-domain fields are **z-sharded** (P('space',None,None)) — `spectral_sharding`
-below. Collectives ride ICI (the mesh 'space' axis maps to the physical ring).
+below. The all-to-alls run over the device interconnect (NVLink between the GPUs of
+one host, where every device reaches every other at the same rate, so the flat
+1-axis mesh needs no device ordering).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 
 def spectral_sharding(mesh: Mesh, axis: str = "space") -> NamedSharding:
@@ -30,76 +30,36 @@ def spectral_sharding(mesh: Mesh, axis: str = "space") -> NamedSharding:
     return NamedSharding(mesh, P(None, axis, None))
 
 
-def _fwd_local(x, axis_name: str, engine: str = "jnp", precision=None,
-               base: int = 0):
-    """Per-shard forward: local rfft(x)+fft(y), transpose z<->y, local fft(z).
-
-    engine="mxfft" routes every chip-local 1D leg through the MXU matmul FFT
-    (kwave_tpu.ops.mxfft — the same base-DFT machinery that wins ~15-40% on
-    single-chip >=256 grids): the r2c x leg is one real DFT matmul, y and z are
-    radix-2 butterflies + the 128-point base matmul, and the y/z spectral bins
-    come out in mxfft's permuted order (operators must be permuted to match,
-    mxfft.permute_operators — exactly as on one chip). The all_to_all trades
-    contiguous blocks of the permuted y axis, so each shard holds one block of
-    the permuted order and the y-sharded operator layout stays consistent."""
+def _fwd_local(x, axis_name: str):
+    """Per-shard forward: local rfft(x)+fft(y), transpose z<->y, local fft(z)."""
     s = jax.lax.psum(1, axis_name)
     nz_loc, ny, _ = x.shape  # after rfft: [nz/S, ny, nxR]
-    if engine == "mxfft":
-        from kwave_tpu.ops import mxfft
-
-        re, im = mxfft._rfft_last(x, x.shape[2], precision)
-        re, im = mxfft._c2c_axis(re, im, 1, ny, False, precision,
-                                 base or mxfft.BASE)
-        xk = jax.lax.complex(re, im)
-    else:
-        xk = jnp.fft.fft(jnp.fft.rfft(x, axis=2), axis=1)
+    xk = jnp.fft.fft(jnp.fft.rfft(x, axis=2), axis=1)
     nxr = xk.shape[2]
     # split y into S blocks and trade: [nz/S, S, ny/S, nxR] -> [S, nz/S, ny/S, nxR]
     xk = xk.reshape(nz_loc, s, ny // s, nxr)
     xk = jax.lax.all_to_all(xk, axis_name, split_axis=1, concat_axis=0, tiled=False)
     # [S, nz/S, ny/S, nxR] -> [nz, ny/S, nxR]
     xk = xk.reshape(s * nz_loc, ny // s, nxr)
-    if engine == "mxfft":
-        from kwave_tpu.ops import mxfft
-
-        re, im = mxfft._c2c_axis(jnp.real(xk), jnp.imag(xk), 0, s * nz_loc,
-                                 False, precision, base or mxfft.BASE)
-        return jax.lax.complex(re, im)
     return jnp.fft.fft(xk, axis=0)
 
 
-def _inv_local(xk, nx: int, axis_name: str, engine: str = "jnp", precision=None,
-               base: int = 0):
+def _inv_local(xk, nx: int, axis_name: str):
     """Per-shard inverse: local ifft(z), transpose y<->z, local ifft(y)+irfft(x)."""
     s = jax.lax.psum(1, axis_name)
     nz, ny_loc, nxr = xk.shape
-    if engine == "mxfft":
-        from kwave_tpu.ops import mxfft
-
-        re, im = mxfft._c2c_axis(jnp.real(xk), jnp.imag(xk), 0, nz, True,
-                                 precision, base or mxfft.BASE)
-        xk = jax.lax.complex(re, im)
-    else:
-        xk = jnp.fft.ifft(xk, axis=0)
+    xk = jnp.fft.ifft(xk, axis=0)
     # [S, nz/S, ny/S, nxR] -> trade back -> [nz/S, S, ny/S, nxR] -> [nz/S, ny, nxR]
     xk = xk.reshape(s, nz // s, ny_loc, nxr)
     xk = jax.lax.all_to_all(xk, axis_name, split_axis=0, concat_axis=1, tiled=False)
     xk = xk.reshape(nz // s, s * ny_loc, nxr)
-    if engine == "mxfft":
-        from kwave_tpu.ops import mxfft
-
-        re, im = mxfft._c2c_axis(jnp.real(xk), jnp.imag(xk), 1, s * ny_loc, True,
-                                 precision, base or mxfft.BASE)
-        return mxfft._irfft_last(re, im, nx, precision)
     return jnp.fft.irfft(jnp.fft.ifft(xk, axis=1), n=nx, axis=2)
 
 
-def dist_rfftn(x: jax.Array, mesh: Mesh, axis: str = "space",
-               engine: str = "jnp", precision=None, base: int = 0) -> jax.Array:
+def dist_rfftn(x: jax.Array, mesh: Mesh, axis: str = "space") -> jax.Array:
     """3D rfftn of a z-sharded [nz, ny, nx] field -> y-sharded spectral [nz, ny, nxR]."""
-    fn = shard_map(
-        functools.partial(_fwd_local, axis_name=axis, engine=engine,
-                          precision=precision, base=base),
+    fn = jax.shard_map(
+        functools.partial(_fwd_local, axis_name=axis),
         mesh=mesh,
         in_specs=P(axis, None, None),
         out_specs=P(None, axis, None),
@@ -107,12 +67,10 @@ def dist_rfftn(x: jax.Array, mesh: Mesh, axis: str = "space",
     return fn(x)
 
 
-def dist_irfftn(xk: jax.Array, nx: int, mesh: Mesh, axis: str = "space",
-                engine: str = "jnp", precision=None, base: int = 0) -> jax.Array:
+def dist_irfftn(xk: jax.Array, nx: int, mesh: Mesh, axis: str = "space") -> jax.Array:
     """Inverse of dist_rfftn: y-sharded spectral -> z-sharded real [nz, ny, nx]."""
-    fn = shard_map(
-        functools.partial(_inv_local, nx=nx, axis_name=axis, engine=engine,
-                          precision=precision, base=base),
+    fn = jax.shard_map(
+        functools.partial(_inv_local, nx=nx, axis_name=axis),
         mesh=mesh,
         in_specs=P(None, axis, None),
         out_specs=P(axis, None, None),

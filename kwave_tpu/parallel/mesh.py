@@ -7,8 +7,8 @@ Design (DESIGN.md / SURVEY.md §2.9 table):
   the same devices (the codec's sensor axis is embarrassingly parallel,
   SURVEY.md §5 long-context note).
 - Basis tables / per-axis operator vectors / scalars are replicated.
-- Multi-host pods extend the same names over a ``('hosts', 'space')`` mesh; collectives on
-  'space' ride ICI.
+- Multi-host runs span the same 1-axis mesh over every process's devices (one process
+  per host).
 
 Everything here works identically on the 8-device virtual CPU mesh used in tests.
 """
@@ -108,22 +108,13 @@ def shard_operators(ops: Operators, grid_ndim: int, mesh: Mesh, axis: str = "spa
     return Operators(**d)
 
 
-def pencil_fft(mesh: Mesh, nx: int, axis: str = "space", engine: str = "jnp",
-               precision=None, base: int = 0):
+def pencil_fft(mesh: Mesh, nx: int, axis: str = "space"):
     """FftOps bound to this mesh's pencil-decomposed distributed FFT — pass as the
-    solver step/simulate `fft` argument alongside pencil-sharded operators.
-
-    ``engine="mxfft"`` runs every chip-local 1D leg through the MXU matmul FFT
-    (y/z bins in mxfft's permuted order — the operators must have gone through
-    ``mxfft.permute_operators`` BEFORE ``shard_operators``, as the driver does).
-    ``base`` raises the base-DFT size the same way driver._auto_direct_base does
-    for single-chip grids (dense local legs beat butterfly passes at >=256 —
-    BASELINE.md)."""
+    solver step/simulate `fft` argument alongside pencil-sharded operators."""
     from kwave_tpu.parallel import fft as dfft
     from kwave_tpu.solver.step import FftOps
 
     return FftOps(
-        rfftn=lambda x: dfft.dist_rfftn(x, mesh, axis, engine, precision, base),
-        irfftn=lambda xk, shape: dfft.dist_irfftn(xk, shape[-1], mesh, axis,
-                                                  engine, precision, base),
+        rfftn=lambda x: dfft.dist_rfftn(x, mesh, axis),
+        irfftn=lambda xk, shape: dfft.dist_irfftn(xk, shape[-1], mesh, axis),
     )

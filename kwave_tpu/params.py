@@ -17,8 +17,8 @@ from kwave_tpu.driver import RunConfig
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="kspaceFirstOrder-TPU",
-        description="Fluid k-space first-order simulator (TPU, JAX) with on-the-fly "
+        prog="kspaceFirstOrder-JAX",
+        description="Fluid k-space first-order simulator (JAX) with on-the-fly "
         "compression — capability-equivalent to kspaceFirstOrder-CUDA v1.3",
     )
     p.add_argument("-i", "--input_file", required=True, help="HDF5 input file")
@@ -30,20 +30,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", "--gpu_id", type=int, default=None,
                    help="(compat; ignored — JAX device binding)")
     p.add_argument("--devices", type=int, default=None, metavar="N",
-                   help="run multi-chip over the first N jax devices "
-                        "(z-sharded fields + pencil FFT); default single device, "
-                        "or ALL global devices under a multi-process launch")
-    # multi-host launch (POD_RUNBOOK.md; no reference analogue — it is single-GPU)
-    p.add_argument("--distributed", action="store_true",
-                   help="jax.distributed.initialize() with TPU-pod auto-detection "
-                        "(one process per host; Cloud TPU metadata supplies "
-                        "coordinator/rank)")
+                   help="run over the first N devices of this process (z-sharded "
+                        "fields + pencil FFT); default single device, or ALL global "
+                        "devices under a multi-process launch. On one host, use one "
+                        "process with --devices N")
+    # multi-host launch (POD_RUNBOOK.md; no reference analogue — it is single-GPU).
+    # One process per HOST: each process drives all of its host's devices.
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="distributed coordinator address (with --num_processes)")
     p.add_argument("--num_processes", type=int, default=None, metavar="N",
-                   help="total process count for explicit multi-host launch")
+                   help="total process count (one per host) for a multi-host launch")
     p.add_argument("--process_id", type=int, default=None, metavar="R",
-                   help="this process's rank for explicit multi-host launch")
+                   help="this process's rank for a multi-host launch")
     p.add_argument("-c", "--compression_level", type=int, default=0,
                    help="output HDF5 gzip level 0-9")
     p.add_argument("-s", "--sampling_start", type=int, default=1,
@@ -88,24 +86,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--40-bit_complex", dest="bit40", action="store_true",
                    help="store coefficients in the packed 40-bit format")
 
-    # TPU spectral-engine knobs (no reference counterpart — cuFFT is fixed there;
-    # the mxfft base/precision policy is measured in BASELINE.md)
-    p.add_argument("--fft_precision", choices=["auto", "highest", "high"],
-                   default="auto",
-                   help="spectral precision: highest = full fp32 emulation "
-                        "(reference fidelity), high = 3-pass bf16 (1.5-2.1x "
-                        "faster at >=256 axes; accumulated field divergence vs "
-                        "highest SATURATES at ~1e-3..4e-3 rel — it does not grow "
-                        "with record length; BASELINE.md drift curves). "
-                        "auto (default): high for >=256-axis grids, highest below")
-    p.add_argument("--mxfft", dest="matmul_fft", action="store_const", const=True,
-                   default=None,
-                   help="force the MXU matmul FFT on (default: auto by grid size "
-                        "and precision)")
-    p.add_argument("--no-mxfft", dest="matmul_fft", action="store_const", const=False,
-                   help="force the MXU matmul FFT off")
-    p.add_argument("--fft_direct_base", type=int, default=None,
-                   help="mxfft dense base-DFT size override (default: auto policy)")
     return p
 
 
@@ -144,7 +124,4 @@ def args_to_run_config(args, dt: Optional[float] = None) -> RunConfig:
         block_size=args.block_size,
         progress_interval=args.progress_interval,
         benchmark_steps=args.benchmark,
-        matmul_fft=args.matmul_fft,
-        fft_precision=None if args.fft_precision == "auto" else args.fft_precision,
-        fft_direct_base=args.fft_direct_base,
     )

@@ -14,7 +14,7 @@ computeAverageIntensitiesC :1543-1775, computeQTerm :1783-2080). Semantics repro
 - **Q term**: scatter the sensor intensities onto the full grid, per-axis spectral
   derivative with plain ik (signed frequencies, :1905-1924), Q = -div(I).
 
-On TPU all three are batched jnp programs — the reference's block-streamed cuFFT plan and
+On the device all three are batched jnp programs — the reference's block-streamed cuFFT plan and
 OpenMP shift loops become single rfft/irfft expressions over the series.
 """
 
@@ -117,18 +117,16 @@ def q_term_from_intensity(
     """Q term from already-stored I{x,y,z}_avg<suffix> datasets (the on-the-fly I_avg_c
     accumulation path: computeQTerm consumes the IAvgC streams' data,
     KSpaceFirstOrderSolver.cpp:1016-1030 + :1783-2080)."""
-    import h5py
-
     from kwave_tpu.io import names as dn
-    from kwave_tpu.io.hdf5 import create_dataset
+    from kwave_tpu.io.hdf5 import create_dataset, is_group, open_file
 
     is3d = grid.dim == 3
     axes = ("x", "y", "z") if is3d else ("x", "y")
-    with h5py.File(output_path, "r+") as f:
+    with open_file(output_path, "r+") as f:
 
         def read_flat(name):
             obj = f[name]
-            if isinstance(obj, h5py.Group):  # cuboid-layout aggregates
+            if is_group(obj):  # cuboid-layout aggregates
                 return np.concatenate([
                     np.asarray(obj[k], np.float32).reshape(-1)
                     for k in sorted(obj.keys(), key=int)
@@ -137,7 +135,7 @@ def q_term_from_intensity(
 
         i_name = f"Ix_avg{suffix}"
         cuboid_dims = None
-        if isinstance(f[i_name], h5py.Group):
+        if is_group(f[i_name]):
             grp = f[i_name]
             cuboid_dims = [grp[k].shape[1:] for k in sorted(grp.keys(), key=int)]
 
@@ -248,17 +246,15 @@ def post_process_output_file(
     host memory (`_auto_block_size`). Raw mode blocks over sensor points (the
     half-step time shift needs the full time axis per point); coefficient mode blocks
     over compressed frames (the intensity is a running mean over frames)."""
-    import h5py
-
     if block_size is None:
         block_size = _auto_block_size()
 
-    from kwave_tpu.io.hdf5 import create_dataset
+    from kwave_tpu.io.hdf5 import create_dataset, is_group, open_file
     from kwave_tpu.io import names as dn
 
     is3d = grid.dim == 3
     axes = ("x", "y", "z") if is3d else ("x", "y")
-    with h5py.File(output_path, "r+") as f:
+    with open_file(output_path, "r+") as f:
         # fail with a actionable message when the run didn't record the needed series
         # (the reference requires the same inputs: postProcessing :950-1045)
         suffix = dn.COMPRESS_SUFFIX if from_coeffs else ""
@@ -275,7 +271,7 @@ def post_process_output_file(
         # (CuboidOutputStream.cpp:656-722); assemble them into the linearized point order
         # (cuboid-concatenated, x fastest — the same order as the sensor mask index list)
         probe_name = ("p" + dn.COMPRESS_SUFFIX) if from_coeffs else dn.P
-        is_cuboid = isinstance(f[probe_name], h5py.Group)
+        is_cuboid = is_group(f[probe_name])
         cuboid_shapes = None  # geometric (cz, cy, cx) per cuboid
         if is_cuboid:
             grp = f[probe_name]

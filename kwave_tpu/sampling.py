@@ -1,4 +1,4 @@
-"""Sensor sampling and reduce operators — the TPU analogue of OutputStreamsCudaKernels.
+"""Sensor sampling and reduce operators — the jnp analogue of OutputStreamsCudaKernels.
 
 The reference gathers field values through an index sensor mask or cuboid corners with a
 templated reduce (OutputStreams/OutputStreamsCudaKernels.cu: cudaSampleIndex :83-107,

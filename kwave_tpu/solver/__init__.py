@@ -1,4 +1,4 @@
-"""k-space pseudospectral fluid solver — TPU-native producer of the sampled fields.
+"""k-space pseudospectral fluid solver — the producer of the sampled fields.
 
 Functional reformulation of the reference KSpaceFirstOrderSolver
 (KSpaceSolver/KSpaceFirstOrderSolver.cpp, SolverCudaKernels.cu): the 31 CUDA kernels and the

@@ -1,6 +1,6 @@
 """Output streams: the sample -> reduce/compress -> file path, as a functional state machine.
 
-TPU-first redesign of OutputStreams/* (BaseOutputStream, IndexOutputStream,
+A redesign of OutputStreams/* (BaseOutputStream, IndexOutputStream,
 CuboidOutputStream, WholeDomainOutputStream, OutputStreamContainer): the reference's OO
 hierarchy with zero-copy host buffers and one-step-delayed flushes
 (OutputStreamContainer.h:56-58, KSpaceFirstOrderSolver.cpp:1060-1093) becomes
@@ -438,12 +438,12 @@ def restore_aggregates_from_file(
     new = dict(states)
     if sampled_steps_done <= 0:
         return new
-    import h5py
+    from kwave_tpu.io.hdf5 import is_group
 
     for s in specs:
         if s.op in ("rms", "max", "min", "max_all", "min_all", "iavg_c"):
             obj = h5file[s.name]
-            if isinstance(obj, h5py.Group):
+            if is_group(obj):
                 new[s.name] = jnp_.asarray(np.concatenate([
                     np.asarray(obj[k], np.float32).reshape(-1)
                     for k in sorted(obj.keys(), key=int)
@@ -658,12 +658,12 @@ class StreamWriter:
             off_pts += npts
 
     def flush_aggregates(self, finals: dict[str, np.ndarray]) -> None:
-        import h5py
+        from kwave_tpu.io.hdf5 import is_group
 
         for name, data in finals.items():
             tgt = self.datasets[name]
             vals = np.asarray(data)
-            if isinstance(tgt, h5py.Group):
+            if is_group(tgt):
                 off = 0
                 for ci, (cx, cy, cz) in enumerate(self.cuboid_shapes):
                     npts = cx * cy * cz

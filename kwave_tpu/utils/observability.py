@@ -113,9 +113,11 @@ def _peak_rss_mb() -> Optional[float]:
 
 
 def _peak_device_mb() -> Optional[float]:
-    """Peak HBM in use on the attached accelerator (TPU memory_stats); None on
-    backends without the probe (CPU). At 512^3 the margin to device OOM is the
-    single most load-bearing number a run can record."""
+    """Peak device memory in use on the first local device, in MiB:
+    ``memory_stats()["peak_bytes_in_use"]``, which the GPU backend reports (what the
+    program's arrays took, not what the process reserved). None where the backend
+    keeps no such statistic (CPU). At 512^3 the margin to device OOM is the single
+    most load-bearing number a run can record."""
     try:
         import jax
 
@@ -158,7 +160,7 @@ def write_run_info(h5file, timers: PhaseTimers, file_path: Optional[str] = None)
         # simulation_peak_device_memory_in_use (Hdf5FileHeader.h:70)
         write_attr(h5file, names.PEAK_DEVICE_MEMORY, dev_peak)
     write_attr(h5file, names.NUMBER_OF_CORES, os.cpu_count() or 1)
-    if file_path is not None and os.path.exists(file_path):
+    if isinstance(file_path, (str, os.PathLike)) and os.path.exists(file_path):
         write_attr(h5file, "output_file_size_MB",
                    os.path.getsize(file_path) / (1 << 20))
 

@@ -109,8 +109,11 @@ def main() -> int:
     multihost_utils.process_allgather = _caller_guarded
 
     if mode == "die" and rank == nprocs - 1:
-        # kill this rank at its second gather boundary (mid-run, after the first
-        # window's emissions already crossed the channel successfully)
+        # kill this rank right before its second gather send (mid-run, after the
+        # first window's emissions already crossed the channel successfully). Like a
+        # real send it first waits for its own shards: dying with that window's
+        # collectives still in flight would fail the writer inside the collective,
+        # before it ever reaches the side channel this test exercises.
         from kwave_tpu.parallel.distributed import WriterGather
 
         orig_gather = WriterGather.gather
@@ -119,6 +122,7 @@ def main() -> int:
         def dying_gather(self, tree):
             calls[0] += 1
             if calls[0] >= 2:
+                jax.block_until_ready(tree)
                 os._exit(17)
             return orig_gather(self, tree)
 

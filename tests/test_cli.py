@@ -79,34 +79,6 @@ def test_cli_post_mode_and_copy_mask(tmp_path):
             assert name in f and np.isfinite(np.asarray(f[name])).all()
 
 
-def test_cli_fft_knobs_reach_run_config():
-    """--fft_precision/--mxfft/--fft_direct_base thread into RunConfig (the TPU
-    spectral-engine knobs; no reference counterpart — cuFFT is fixed there)."""
-    from kwave_tpu.params import args_to_run_config, build_parser
-
-    p = build_parser()
-    a = p.parse_args(["-i", "x.h5", "-o", "y.h5", "--p_raw",
-                      "--fft_precision", "high", "--mxfft",
-                      "--fft_direct_base", "256"])
-    run = args_to_run_config(a)
-    assert run.fft_precision == "high"
-    assert run.matmul_fft is True
-    assert run.fft_direct_base == 256
-    a2 = p.parse_args(["-i", "x.h5", "-o", "y.h5", "--p_raw", "--no-mxfft"])
-    run2 = args_to_run_config(a2)
-    # default is AUTO (None): "high" resolves at >=256 axes, "highest" below
-    # (driver._auto_fft_precision; measured saturation curves in BASELINE.md)
-    assert run2.matmul_fft is False and run2.fft_precision is None
-    assert run2.fft_direct_base is None
-    from kwave_tpu.driver import _auto_fft_precision
-
-    assert _auto_fft_precision((256, 256, 256)) == "high"
-    assert _auto_fft_precision((128, 128, 128)) == "highest"
-    a3 = p.parse_args(["-i", "x.h5", "-o", "y.h5", "--p_raw",
-                       "--fft_precision", "highest"])
-    assert args_to_run_config(a3).fft_precision == "highest"
-
-
 def test_cli_num_processes_requires_coordinator(capsys):
     """--num_processes without --coordinator/--process_id fails at the parser
     with a message naming the fix (not deep inside jax.distributed)."""

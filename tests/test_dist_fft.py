@@ -62,44 +62,24 @@ def test_dist_spectral_multiply_kappa(mesh):
     np.testing.assert_allclose(got, ref, atol=1e-4)
 
 
-def test_dist_mxfft_engine_matches_jnp(mesh):
-    """The mxfft-backed pencil legs (engine="mxfft") reproduce the jnp pencil up
-    to mxfft's y/z bin permutation, and roundtrip to identity. Uses a 256-z grid
-    so the radix-2 levels actually run (16-length axes hit the base directly)."""
-    from kwave_tpu.ops import mxfft
+@pytest.mark.parametrize("n_dev,shape", [(2, (8, 6, 10)), (4, (16, 12, 9)),
+                                         (8, (32, 16, 7))])
+def test_pencil_fft_on_jax_shard_map(n_dev, shape):
+    """The pencil legs run under jax.shard_map (the deprecated
+    jax.experimental.shard_map warns on use) on 2, 4 and 8 devices, odd x extents
+    included, and match numpy's rfftn forward and back."""
+    import warnings
 
-    rng = np.random.default_rng(5)
-    x = rng.standard_normal((256, 16, 12)).astype(np.float32)
-    xs = jax.device_put(jnp.asarray(x), field_sharding(mesh, 3))
-
-    @jax.jit
-    def both(a):
-        k_jnp = dist_rfftn(a, mesh)
-        k_mx = dist_rfftn(a, mesh, engine="mxfft",
-                          precision=jax.lax.Precision.HIGHEST)
-        back = dist_irfftn(k_mx, a.shape[2], mesh, engine="mxfft",
-                           precision=jax.lax.Precision.HIGHEST)
-        return k_jnp, k_mx, back
-
-    k_jnp, k_mx, back = both(xs)
-    pz, py = mxfft.perm(256), mxfft.perm(16)
-    ref_perm = np.asarray(k_jnp)[pz][:, py]
-    scale = np.abs(ref_perm).max()
-    np.testing.assert_allclose(np.asarray(k_mx), ref_perm, atol=3e-5 * scale)
-    np.testing.assert_allclose(np.asarray(back), x, atol=3e-5 * np.abs(x).max())
-    assert k_mx.sharding.is_equivalent_to(spectral_sharding(mesh), 3)
-
-    # dense local bases (base=256: no butterfly levels, canonical bin order) —
-    # the >=256 sharded regime the driver auto-picks at precision "high"
-    @jax.jit
-    def dense(a):
-        k = dist_rfftn(a, mesh, engine="mxfft",
-                       precision=jax.lax.Precision.HIGHEST, base=256)
-        return k, dist_irfftn(k, a.shape[2], mesh, engine="mxfft",
-                              precision=jax.lax.Precision.HIGHEST, base=256)
-
-    k_dense, back_dense = dense(xs)
-    np.testing.assert_allclose(np.asarray(k_dense), np.asarray(k_jnp),
-                               atol=3e-5 * scale)
-    np.testing.assert_allclose(np.asarray(back_dense), x,
-                               atol=3e-5 * np.abs(x).max())
+    if len(jax.devices()) < n_dev:
+        pytest.skip(f"needs {n_dev} devices")
+    mesh_n = make_mesh(n_dev)
+    x = np.random.default_rng(n_dev).standard_normal(shape).astype(np.float32)
+    xs = jax.device_put(jnp.asarray(x), field_sharding(mesh_n, 3))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        xk = dist_rfftn(xs, mesh_n)
+        back = dist_irfftn(xk, shape[2], mesh_n)
+    ref = np.fft.rfftn(x.astype(np.float64))
+    np.testing.assert_allclose(np.asarray(xk), ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+    np.testing.assert_allclose(np.asarray(back), x, atol=1e-5)

@@ -135,40 +135,6 @@ def test_run_simulation_on_mesh_matches_single(mesh, tmp_path):
                                        err_msg=name)
 
 
-def test_run_simulation_mesh_mxfft_matches_default(mesh, tmp_path):
-    """run_simulation(mesh=..., matmul_fft=True) — mxfft-pencil locals + permuted
-    sharded operators — matches the default jnp-pencil mesh run (VERDICT r3 #7)."""
-    import h5py
-
-    from kwave_tpu.driver import RunConfig, run_simulation
-    from kwave_tpu.io.input_file import InputData
-
-    grid = Grid(nx=16, ny=16, nz=16, dx=1e-4, dy=1e-4, dz=1e-4, dt=2e-8, nt=30)
-    p0 = np.zeros(grid.shape, np.float32)
-    p0[8, 8, 8] = 1e5
-    mask = np.sort(
-        np.random.default_rng(4).choice(grid.n_elements, 48, replace=False)
-    ).astype(np.int64)
-    data = InputData(
-        grid=grid, medium=Medium(c0=1500.0, rho0=1000.0),
-        pml_size=(2, 2, 2), pml_alpha=(2.0,) * 3,
-        sensor_mask_index=mask, p0=p0,
-    )
-    flags = dict(p_raw=True, p_c=True, p_rms=True)
-    out_ref = str(tmp_path / "jnp.h5")
-    out_mx = str(tmp_path / "mx.h5")
-    run_simulation(data, RunConfig(flags=flags, period=10.0, harmonics=2),
-                   out_ref, mesh=mesh)
-    run_simulation(data, RunConfig(flags=flags, period=10.0, harmonics=2,
-                                   matmul_fft=True),
-                   out_mx, mesh=mesh)
-    with h5py.File(out_ref) as fr, h5py.File(out_mx) as fm:
-        for name in ("p", "p_c", "p_rms"):
-            a, b = np.asarray(fm[name]), np.asarray(fr[name])
-            scale = max(np.abs(b).max(), 1e-30)
-            np.testing.assert_allclose(a, b, atol=5e-5 * scale, err_msg=name)
-
-
 def test_cuboid_mask_40bit_on_mesh(tmp_path):
     """Cuboid-corner sensor masks through the FULL sharded driver (previously
     only index masks had mesh coverage): per-cuboid groups, padded 40-bit rows,

@@ -10,7 +10,9 @@ from kwave_tpu import sampling
 from kwave_tpu.basis import generate_basis
 from kwave_tpu.driver import RunConfig, run_simulation
 from kwave_tpu.encoder import encode_series_exact, frames_to_flat_float
+from kwave_tpu.io.hdf5 import open_file
 from kwave_tpu.io.input_file import InputData
+from kwave_tpu.io.memory import MemoryFile
 from kwave_tpu.solver import (
     Grid,
     Medium,
@@ -63,19 +65,21 @@ def _reference_series(data):
     return np.concatenate([np.asarray(row0)[None], np.asarray(series)])
 
 
-@pytest.mark.parametrize("strategy", ["ys", "carry"])
-def test_driver_matches_reference_run(tmp_path, strategy):
+@pytest.mark.parametrize("target", ["hdf5", "memory"])
+def test_driver_matches_reference_run(tmp_path, target):
+    """The same run into an HDF5 file and into an in-memory store (io.memory), which
+    stands in for the file where h5py is not installed."""
     data = _input()
-    out = str(tmp_path / f"out_{strategy}.h5")
+    out = str(tmp_path / "out.h5") if target == "hdf5" else MemoryFile()
     run = RunConfig(
         flags=dict(p_raw=True, p_c=True, p_rms=True, p_max=True, p_min=True,
                    p_max_all=True, p_final=True, u_raw=True),
         period=10.0, harmonics=2,
     )
-    summary = run_simulation(data, run, out, strategy=strategy)
+    summary = run_simulation(data, run, out)
     series = _reference_series(data)
 
-    with h5py.File(out, "r") as f:
+    with open_file(out, "r") as f:
         # raw series: windows cover nt//o * o steps; compare that prefix bitwise
         raw = np.asarray(f["p"])[0]
         assert raw.shape == (60, 64)
@@ -299,3 +303,45 @@ def test_cuboid_equals_index_mask_same_points(tmp_path):
         ci = np.asarray(fi["p_c"])[0]    # [Nc, N*2H]
         np.testing.assert_array_equal(cc.reshape(cc.shape[0], -1, 2 * h),
                                       ci.reshape(ci.shape[0], -1, 2 * h))
+
+
+@pytest.mark.parametrize("case", ["raw", "float_c", "40bit_c", "no_overlap_c",
+                                  "aggregates"])
+def test_window_program_per_stream_set(case):
+    """Each stream set compiles its own window program; each must reproduce the plain
+    per-step run on its own: raw rows bit for bit, compressed frames equal to the exact
+    encoder on those rows, aggregates equal to NumPy reductions of them."""
+    from kwave_tpu.encoder import frames_to_flat_40b
+
+    flags, kw = {
+        "raw": (dict(p_raw=True), {}),
+        "float_c": (dict(p_raw=True, p_c=True), {}),
+        "40bit_c": (dict(p_raw=True, p_c=True), dict(mode40=True)),
+        "no_overlap_c": (dict(p_raw=True, p_c=True), dict(no_overlap=True)),
+        "aggregates": (dict(p_rms=True, p_max=True, p_min=True), {}),
+    }[case]
+    data = _input()
+    out = MemoryFile()
+    run_simulation(data, RunConfig(flags=flags, period=10.0, harmonics=2, **kw), out)
+    series = _reference_series(data)
+    if "p" in out:
+        np.testing.assert_array_equal(np.asarray(out["p"])[0], series)
+    if "p_c" in out:
+        mode40 = kw.get("mode40", False)
+        frames, _ = encode_series_exact(jnp.asarray(series), generate_basis(10.0, 1, 2),
+                                        mode40=mode40, overlap=not kw.get("no_overlap"))
+        got = np.asarray(out["p_c"])[0]
+        if mode40:
+            want = frames_to_flat_40b(*(np.asarray(a) for a in frames))
+            got = got.view(np.uint8)[:, : want.shape[-1]]
+        else:
+            want = frames_to_flat_float(*(np.asarray(a) for a in frames))
+        np.testing.assert_array_equal(got, want)
+    if case == "aggregates":
+        np.testing.assert_array_equal(np.asarray(out["p_max"]).reshape(-1),
+                                      series.max(axis=0))
+        np.testing.assert_array_equal(np.asarray(out["p_min"]).reshape(-1),
+                                      series.min(axis=0))
+        np.testing.assert_allclose(np.asarray(out["p_rms"]).reshape(-1),
+                                   np.sqrt(np.mean(series.astype(np.float64) ** 2, 0)),
+                                   rtol=2e-5)

@@ -182,7 +182,6 @@ def test_one_window_no_overlap_boundary(tmp_path):
 def _reference_series_with_shifted(data):
     """(p series, ux_shifted series) sampled at the mask, [T, N] each."""
     from kwave_tpu.solver import shifted_velocity
-    from kwave_tpu.solver.step import LOCAL_FFT
 
     grid = data.grid
     ops = make_operators(grid, data.medium, data.pml_size, data.pml_alpha,
@@ -194,7 +193,7 @@ def _reference_series_with_shifted(data):
     mask = jnp.asarray(data.sensor_mask_index.astype(np.int32))
 
     def sample_fn(s):
-        sh = shifted_velocity(s, ops, LOCAL_FFT)
+        sh = shifted_velocity(s, ops)
         return (
             sampling.sample_index(s.p.reshape(-1), mask),
             sampling.sample_index(sh[0].reshape(-1), mask),

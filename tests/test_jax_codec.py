@@ -1,9 +1,9 @@
 """JAX codec vs NumPy oracle.
 
-Bit-exactness strategy (see DESIGN.md "Numerics"): XLA:CPU contracts fp32 mul+add into FMA at
-LLVM level (not disableable), so random-data bit-equality with the no-FMA reference semantics
-only holds on TPU (tools/validate_tpu.py runs that gate on the real chip). FMA changes results
-ONLY when a product is inexact, so this suite pins the *entire* state machine — frame
+Bit-exactness strategy (see DESIGN.md "Numerics"): XLA:CPU rounds the exact path's fp32
+multiply-adds differently from the reference's separate roundings, so random-data bit-equality
+holds on the GPU (XLA:GPU emits mul.rn/add.rn; `python chip_smoke.py` runs that gate on the
+card) and not here. The rounding differs ONLY when a product is inexact, so this suite pins the *entire* state machine — frame
 alternation, mirroring, zeroing, per-step 40-bit RMW, emission, layouts — bit-for-bit on any
 backend using dyadic-exact data (few-mantissa-bit tables x integer samples => every multiply
 exact). Real-valued data is additionally checked within fp32 tolerance.
@@ -190,7 +190,7 @@ def test_trailing_partial_window_and_resume():
 
 
 # ---------------------------------------------------------------------------
-# Real-valued data: fp32-tolerance on CPU (bit-exactness on TPU via tools/validate_tpu.py)
+# Real-valued data: fp32-tolerance on CPU (bit-exactness on the GPU via chip_smoke.py)
 # ---------------------------------------------------------------------------
 
 

@@ -305,3 +305,39 @@ def test_acoustic_reciprocity():
     scale = np.abs(ab).max()
     assert scale > 0
     assert np.abs(ab - ba).max() / scale < 1e-4
+
+
+@pytest.mark.parametrize("axis", ["x", "y", "z"])
+def test_shifted_velocity_moves_staggered_samples_onto_the_grid(axis):
+    """shifted_velocity (per-axis jnp rfft/irfft with exp(-i k d/2)) takes a velocity
+    sampled at the staggered points (j + 1/2) d back to the grid points j d: a sinusoid
+    comes back as the same sinusoid half a cell earlier. Odd and even extents."""
+    from kwave_tpu.solver import SimState, shifted_velocity
+
+    nz, ny, nx = 8, 9, 12
+    grid = Grid(nx=nx, ny=ny, nz=nz, dx=1e-4, dy=2e-4, dz=1.5e-4, dt=1e-8, nt=1)
+    ops = make_operators(grid, Medium(c0=1500.0, rho0=1000.0), (2, 2, 2), (2.0,) * 3,
+                         need_shift=True)
+    ax = {"x": 2, "y": 1, "z": 0}[axis]
+    n = grid.shape[ax]
+    j = np.arange(n)
+    shape = [1, 1, 1]
+    shape[ax] = n
+    cross = np.linspace(0.5, 1.5, int(np.prod(grid.shape)) // n)  # varies off-axis
+    cross = np.moveaxis(cross.reshape([s for i, s in enumerate(grid.shape) if i != ax]
+                                      + [1]), -1, ax)
+
+    def field(offset):
+        return (cross * np.sin(2 * np.pi * 2 * (j + offset) / n).reshape(shape)
+                ).astype(np.float32)
+
+    zero = jnp.zeros(grid.shape, jnp.float32)
+    comps = {c: zero for c in ("ux_sgx", "uy_sgy", "uz_sgz")}
+    comps[{"x": "ux_sgx", "y": "uy_sgy", "z": "uz_sgz"}[axis]] = jnp.asarray(field(0.5))
+    state = SimState(p=zero, rho_x=zero, rho_y=zero, rho_z=zero, **comps)
+    out = shifted_velocity(state, ops)
+    got = np.asarray(out[{"x": 0, "y": 1, "z": 2}[axis]])
+    np.testing.assert_allclose(got, field(0.0), atol=2e-6)
+    for k in range(3):
+        if k != {"x": 0, "y": 1, "z": 2}[axis]:
+            assert not np.asarray(out[k]).any()
